@@ -8,7 +8,7 @@ sample values). Mid-stream, a 44.1k->48k resampler is LIVE-INSERTED at an
 exact chunk boundary; the downstream FIR is re-allocated at the new block
 width with its filter tail carried, so the stream never glitches.
 
-Run on a TPU slice directly, or on a laptop:
+Run on GPUs directly, or on a laptop:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python examples/bursty_network_stream.py --cpu

@@ -8,7 +8,7 @@ matrix mixer, then while the stream is running:
   3. adds a whole new line mid-flight,
   4. prints per-line throughput stats at the end.
 
-Run: ``python examples/live_mixing_desk.py`` (CPU or TPU).
+Run: ``python examples/live_mixing_desk.py`` (CPU or GPU).
 """
 
 import os
@@ -17,7 +17,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "--cpu" in sys.argv:  # force the CPU backend even if a TPU plugin loaded
+if "--cpu" in sys.argv:  # force the CPU backend even where a GPU is visible
     sys.argv.remove("--cpu")
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax

@@ -1,14 +1,15 @@
-"""Multi-host streaming — the full Pipe runtime across a DCN process group.
+"""Multi-host streaming — the full Pipe runtime across a process group.
 
 Run with no arguments and the script launches itself twice (two "hosts" on
 this machine, CPU backend, 2 virtual devices each — the same code runs
-unchanged on real multi-host TPU slices; drop the CPU forcing and pass each
-host its real process_id/coordinator):
+unchanged across real hosts; drop the CPU forcing and pass each host its
+real process_id/coordinator. On one host with several GPUs, one process
+drives them all instead):
 
     python examples/multihost_stream.py
 
 Every host runs the IDENTICAL program: a global (1 x 4) mesh whose time
-axis spans both processes, so the FIR filter tail crosses the DCN edge as
+axis spans both processes, so the FIR filter tail crosses the process edge as
 a `ppermute` halo on every chunk. The stream carries state chunk-to-chunk,
 a `set_taps` mutation is pushed with `at_block=` so it lands on the same
 sample everywhere, and each host's sink receives the WHOLE stream (outputs

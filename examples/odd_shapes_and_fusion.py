@@ -8,7 +8,7 @@ collapses the two FIRs into one cascaded conv (the gain stays a cheap
 standalone stage); the retune through the ORIGINAL object still lands,
 recompile-free.
 
-Run on a TPU slice directly, or on a laptop:
+Run on GPUs directly, or on a laptop:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/odd_shapes_and_fusion.py --cpu

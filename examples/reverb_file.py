@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "--cpu" in sys.argv:  # force the CPU backend even if a TPU plugin loaded
+if "--cpu" in sys.argv:  # force the CPU backend even where a GPU is visible
     sys.argv.remove("--cpu")
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax

@@ -1,6 +1,6 @@
 """The flagship 64-channel chain on a device mesh — the scaling story in
-~40 lines. Works anywhere: on a TPU slice it shards over real chips; on a
-laptop run with
+~40 lines. Works anywhere: on a host with several GPUs it shards over the
+cards; on a laptop run with
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_flagship.py --cpu
@@ -60,8 +60,7 @@ def main():
     steps = 20
     for _ in range(steps):
         y = chain.step(x)
-    # force completion with a readback (see docs/PERF_NOTES.md)
-    _ = float(np.asarray(jax.device_get(y))[0, -1])
+    jax.block_until_ready(y)
     dt = (time.perf_counter() - t0) / steps
     print(f"out shape {tuple(y.shape)}  ~{C * chunk / dt / 1e6:.0f} Msamples/s")
 

@@ -1,14 +1,14 @@
-"""pipe_tpu — a TPU-native streaming DSP pipeline framework.
+"""pipe_tpu — a streaming DSP pipeline framework on JAX/XLA.
 
 A pipeline is a graph of *lines*; each line is ``Source -> [0..n Processors]
 -> Sink`` operating on fixed-size float time-blocks. This mirrors the
-capability surface of the Go reference (``pipelined.dev/pipe``, see
-``/root/reference/doc.go:1-79``) but the design is TPU-first:
+capability surface of the Go reference (``pipelined.dev/pipe``, see its
+``doc.go:1-79``) but the design is accelerator-first:
 
 - The per-buffer hot loop (reference ``run.go:215-217`` + ``pipe.go:381-471``)
   becomes a SINGLE fused, jitted XLA computation per time-block per line.
   There is no goroutine-per-stage and no channel transport on the hot path —
-  XLA fuses the stage chain into one kernel schedule in HBM/VMEM.
+  XLA fuses the stage chain into one kernel schedule in device memory.
 - Components are pure functions over pytrees:
   ``(state, params, signal) -> (state, signal)``. Mutable parameters are
   *traced inputs*, so a pushed mutation is just a new leaf value — it never
@@ -19,7 +19,8 @@ capability surface of the Go reference (``pipelined.dev/pipe``, see
   order, race-free (the reference applies per-buffer; blocks are our buffers).
 - Scaling is done with ``jax.sharding`` meshes: channels are sharded as the
   data-parallel axis, time-blocks as the sequence axis with overlap-save halo
-  exchange of filter tails via ``ppermute`` over ICI (see ``pipe_tpu.parallel``).
+  exchange of filter tails via ``ppermute`` between devices (see
+  ``pipe_tpu.parallel``).
 """
 
 from pipe_tpu.signal import (

@@ -9,7 +9,7 @@ threading :class:`SignalProperties` source -> processors -> sink exactly as
 Execution-mode selection mirrors ``line.go:92-104`` at one level up: lines
 with a mutable context form *sync groups* (one executor thread round-robins
 them, reference ``run.go:28-34``); immutable lines are *async* (own thread).
-On TPU the intra-line stage chain always fuses into one jitted computation —
+The intra-line stage chain always fuses into one jitted computation —
 the Sync/Async fitting distinction of the reference collapses because there
 is no per-stage goroutine to connect.
 """

@@ -1,6 +1,6 @@
 """Native runtime bindings (ctypes over C++ in ``native/``).
 
-The compute path is XLA/Pallas; the *runtime around it* — host-side
+The compute path is XLA; the *runtime around it* — host-side
 transport and the file data-loader — is native C++, mirroring where the
 reference leans on the Go runtime (channels: ``internal/fitting``; codecs:
 the pipelined.dev wav package ecosystem):
@@ -12,13 +12,15 @@ the pipelined.dev wav package ecosystem):
   (``native/wavio.cpp``) used by :mod:`pipe_tpu.io` sources/sinks.
 
 The shared library is compiled on first use with ``g++ -O3`` and cached
-next to this file; if no C++ toolchain is available the importers fall
-back to pure-Python equivalents (``available()`` reports which is live).
+next to this file under a name keyed by a hash of the sources; if no C++
+toolchain is available the importers fall back to pure-Python equivalents
+(``available()`` reports which is live).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -29,34 +31,32 @@ import numpy as np
 
 _REPO = Path(__file__).resolve().parent.parent
 _SRC_DIR = _REPO / "native"
-_LIB_PATH = Path(__file__).resolve().parent / "_native.so"
 _SOURCES = ("ringbuf.cpp", "wavio.cpp")
+_CXXFLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
-def _needs_build() -> bool:
-    if not _LIB_PATH.exists():
-        return True
-    lib_mtime = _LIB_PATH.stat().st_mtime
-    return any(
-        (_SRC_DIR / s).stat().st_mtime > lib_mtime
-        for s in _SOURCES
-        if (_SRC_DIR / s).exists()
-    )
+def _lib_path() -> Path:
+    """The library built from exactly the current ``native/*.cpp``: its
+    name carries a hash of the sources and flags, so a library left in the
+    tree by another checkout or machine is never loaded in their place."""
+    h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+    for s in _SOURCES:
+        h.update((_SRC_DIR / s).read_bytes())
+    return Path(__file__).resolve().parent / f"_native-{h.hexdigest()[:16]}.so"
 
 
-def _build() -> None:
-    srcs = [str(_SRC_DIR / s) for s in _SOURCES]
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", str(_LIB_PATH), *srcs,
-    ]
+def _build(path: Path) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *_CXXFLAGS, "-o", str(tmp),
+           *[str(_SRC_DIR / s) for s in _SOURCES]]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     if proc.returncode != 0:
         raise RuntimeError(f"native build failed:\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders never see a stub
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -65,9 +65,10 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            if _needs_build():
-                _build()
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            path = _lib_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
         except Exception as e:  # noqa: BLE001 — record and fall back
             _build_error = str(e)
             return None

@@ -8,13 +8,16 @@ machine. Rewritten as an affine recurrence over 2-vectors,
     u[n] = (b0 x[n] + b1 x[n-1] + b2 x[n-2], 0),
 
 the whole block is evaluated with ``jax.lax.associative_scan`` over
-(matrix, vector) pairs in O(log B) depth — the TPU-native formulation of an
-IIR filter. The FIR part of u[n] is a 3-tap streaming FIR reusing the same
-tail mechanics as :mod:`pipe_tpu.ops.fir`.
+(matrix, vector) pairs in O(log B) depth — a parallel formulation of an
+IIR filter (on the CPU, large blocks take a scan of Toeplitz tile matmuls
+instead, :func:`_iir_path`). The FIR part of u[n] is a 3-tap streaming FIR
+reusing the same tail mechanics as :mod:`pipe_tpu.ops.fir`.
 
-Numerics: f32 associative composition of 2x2 matrices loses precision for
-very high-Q poles; for |pole| < ~0.99 the SNR against a float64 oracle
-stays well above 80 dB. Cascades are applied section by section.
+Numerics: one iterative-refinement pass (default) lifts the f32 engine to
+>= 100 dB against a float64 oracle wherever the f32 noise-gain floor
+allows (docs/PERF_NOTES.md "kappa floor": any q <= 10 at >= 1 kHz at
+44.1 kHz); ``precision='extended'`` (double-f32) clears 100 dB down to
+20 Hz sections. Cascades are applied section by section.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def _iir_sequences(a1, a2, Q: int):
 
     Every tile of the recurrence is then EXACTLY
     ``y = Tl @ v + y_prev1 * alpha + y_prev2 * beta`` with
-    ``Tl[i, j] = g[i-j]`` — a lower-triangular Toeplitz matmul (MXU) plus
+    ``Tl[i, j] = g[i-j]`` — a lower-triangular Toeplitz matmul plus
     rank-2 boundary terms, replacing the sequential scan.
     """
     # Run all three recurrences together on a (3,) carry pair (y[n-1], y[n-2]).
@@ -72,8 +75,8 @@ def _iir_sequences(a1, a2, Q: int):
     return seqs[:, 0], seqs[:, 1], seqs[:, 2]  # g, alpha, beta
 
 
-def _iir_tiles_ref(v, s, TlT, ab, Q: int):
-    """Portable tile loop (lax.scan): carry (C, 2) = (y[-1], y[-2])."""
+def _iir_tiles(v, s, TlT, ab, Q: int):
+    """Tile loop (lax.scan): carry (C, 2) = (y[-1], y[-2])."""
     C, B = v.shape
     tiles = v.reshape(C, B // Q, Q).transpose(1, 0, 2)  # (n, C, Q)
 
@@ -89,69 +92,36 @@ def _iir_tiles_ref(v, s, TlT, ab, Q: int):
     return ys.transpose(1, 0, 2).reshape(C, B)
 
 
-def _iir_tiles_pallas(v, s, TlT, ab, Q: int, interpret: bool = False):
-    """Pallas kernel: sequential grid over tiles, carry in VMEM scratch,
-    one (C, Q) x (Q, Q) MXU matmul per tile. TPU grids execute in order,
-    which is what makes the carried recurrence correct."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    C, B = v.shape
-    n = B // Q
-
-    def kernel(v_ref, t_ref, ab_ref, s0_ref, y_ref, carry):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            carry[:] = s0_ref[:]
-
-        vt = v_ref[:]
-        y = jnp.dot(
-            vt, t_ref[:], preferred_element_type=jnp.float32,
-            precision=lax.Precision.HIGHEST,
-        )
-        y = y + carry[:, 0:1] * ab_ref[0:1, :] + carry[:, 1:2] * ab_ref[1:2, :]
-        y_ref[:] = y
-        carry[:, 0] = y[:, Q - 1]
-        carry[:, 1] = y[:, Q - 2]
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n,),
-        in_specs=[
-            pl.BlockSpec((C, Q), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Q, Q), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, Q), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((C, 2), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((C, Q), lambda i: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, B), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((C, 2), jnp.float32)],
-        interpret=interpret,
-    )(v, TlT, ab, s)
-
-
+# Tile size and cut-over of the tiled engine. The GPU never takes it: on an
+# H100 (80GB HBM3, 700 W) the scan of tile matmuls ran 4.4-6.2 ms per call
+# at every (C, B) from (2, 512) to (64, 8192) against 0.16-0.25 ms for the
+# associative scan, and the config-4 step (OLS 64k + refined EQ, C=16,
+# B=8192) took 6.26 ms against 0.32 ms (benchmarks/sweep.py). On the CPU
+# the tiled engine is the faster one for large blocks.
 _TILE_Q = 256
 _TILE_MIN_B = 2048
 
 
-def _iir_apply(v, s, a1, a2, force: str | None = None):
-    """Dispatch the recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``.
+def _iir_path(B: int, backend: str | None = None) -> str:
+    """Which engine :func:`_iir_apply` runs for a B-frame block: the
+    associative scan on the GPU; elsewhere the tiled engine for blocks of
+    at least ``_TILE_MIN_B`` frames in whole tiles."""
+    if backend is None:
+        backend = jax.default_backend()
+    if backend != "gpu" and B % _TILE_Q == 0 and B >= _TILE_MIN_B:
+        return "tiles"
+    return "assoc"
 
-    Large blocks take the tiled Toeplitz path (Pallas on TPU, scan of tile
-    matmuls elsewhere); small blocks keep the associative scan. ``force``
-    pins a path for tests: 'assoc' | 'tiles' | 'pallas' | 'pallas_interpret'.
+
+def _iir_apply(v, s, a1, a2, path: str | None = None):
+    """Dispatch the recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``
+    to the associative scan or the tiled Toeplitz engine (a scan of tile
+    matmuls), as :func:`_iir_path` picks. ``path`` pins an engine:
+    'assoc' | 'tiles'.
     """
     C, B = v.shape
-    Q = _TILE_Q
-    tiled_ok = B % Q == 0 and B >= _TILE_MIN_B and C % 8 == 0
-    path = force
     if path is None:
-        if tiled_ok:
-            path = "pallas" if jax.default_backend() == "tpu" else "tiles"
-        else:
-            path = "assoc"
+        path = _iir_path(B)
 
     if path == "assoc":
         A = jnp.stack(
@@ -168,16 +138,13 @@ def _iir_apply(v, s, a1, a2, force: str | None = None):
         )
         return jnp.swapaxes(s_all[..., 0], 0, 1)  # (C, B)
 
+    Q = _TILE_Q
     g, alpha, beta = _iir_sequences(a1, a2, Q)
     i = jnp.arange(Q)[:, None]
     j = jnp.arange(Q)[None, :]
     TlT = jnp.where(i <= j, g[jnp.clip(j - i, 0, Q - 1)], 0.0)  # Tl^T (Q, Q)
     ab = jnp.stack([alpha, beta], axis=0)  # (2, Q)
-    if path == "tiles":
-        return _iir_tiles_ref(v, s, TlT, ab, Q)
-    return _iir_tiles_pallas(
-        v, s, TlT, ab, Q, interpret=(path == "pallas_interpret")
-    )
+    return _iir_tiles(v, s, TlT, ab, Q)
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +157,8 @@ def _iir_apply(v, s, a1, a2, force: str | None = None):
 # the pole recurrence, and the section state as UNEVALUATED f32 PAIRS
 # (hi + lo, Dekker/Knuth error-free transforms: ~2^-48 effective precision)
 # drops the injected noise to 2^-48 * kappa, far below the 2^-24 cap of the
-# final output rounding. All ops are exact-f32 VPU arithmetic — no f64,
-# which TPUs lack. Opt in with ``Biquad(..., precision='extended')``.
+# final output rounding. All ops are exact-f32 elementwise arithmetic, no
+# f64. Opt in with ``Biquad(..., precision='extended')``.
 # ---------------------------------------------------------------------------
 
 _SPLIT_F32 = 4097.0  # 2**12 + 1 — Veltkamp split constant for float32
@@ -218,7 +185,7 @@ def _opaque_one(x):
     ``biquad_block`` with constant coefficients should pass them as traced
     arrays (or derive ``one`` from the always-traced signal buffer).
     ``tests/test_ops.py::test_dd_transforms_exact_under_jit`` pins this on
-    every backend the suite runs on."""
+    the CPU and ``tests/test_on_card.py`` on the GPU."""
     return x * 0.0 + 1.0
 
 
@@ -238,8 +205,9 @@ def _fast_two_sum(a, b):
 
 
 def _two_prod(a, b, one):
-    """Error-free a * b = p + e via Veltkamp splitting (no FMA on the VPU;
-    on CPU LLVM *does* contract, so every product is pinned with ``one``)."""
+    """Error-free a * b = p + e via Veltkamp splitting (XLA's CPU and GPU
+    backends contract mul+add into FMA, so every product is pinned with
+    ``one``)."""
     p = (a * b) * one
     ca = (a * _SPLIT_F32) * one
     ah = ca - (ca - a)

@@ -14,11 +14,10 @@ K-fold decimated input phases) followed by an FFT across branches. For
 real input only the first K/2+1 bins are unique (Hermitian symmetry) —
 the rfft across branches yields them directly.
 
-TPU mapping: the branch FIRs run as ONE grouped conv over C*K branches
-(few taps each — VPU work); the FFT batches over output frames. Complex
-values exist only at the FFT output and are immediately split into re/im
-float32 planes (complex arithmetic is unimplemented on some TPU
-runtimes, see ``pipe_tpu.ops.ols``).
+Device mapping: the branch FIRs run as ONE grouped conv over C*K branches
+(few taps each); the FFT batches over output frames. Complex values exist
+only at the FFT output and are immediately split into re/im float32 planes
+(the layout of ``pipe_tpu.ops.ols``).
 
 Signal layout: a channelized stream doesn't fit the framework's
 ``(channels, frames)`` model as complex subbands, so the Processor emits

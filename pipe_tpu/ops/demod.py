@@ -164,7 +164,7 @@ class FMDiscriminator:
         f[n] = atan2(I[n-1]Q[n] - Q[n-1]I[n], I[n-1]I[n] + Q[n-1]Q[n]) / 2π
 
     — the angle of ``z[n] * conj(z[n-1])``, exact for any deviation (no
-    small-angle approximation) and elementwise on the VPU. The previous
+    small-angle approximation) and elementwise. The previous
     I/Q sample carries across blocks, so the stream is continuous.
     Chain ``IQMix -> FIR lowpass -> FMDiscriminator`` for a complete FM
     receiver (see :func:`fm_demod_factory`)."""

@@ -1,8 +1,8 @@
 """Time-domain dynamics ops: delay/echo, peak compressor/limiter, noise
 gate.
 
-All recurrences are expressed scan-parallel (TPU-native, no sequential
-sample loops):
+All recurrences are expressed scan-parallel (no sequential sample
+loops):
 
 - The release envelope follower ``env[n] = max(|x[n]|, r * env[n-1])`` is
   an associative recurrence over (decay, value) pairs:

@@ -10,11 +10,10 @@ Hot path (shared taps, block >= 128 frames): the signal is reframed into
 ``S``-sample frames treated as *features*, and the FIR becomes ONE
 ``lax.conv_general_dilated`` with ``S`` input features, ``S`` output
 features, and ``ceil((T-1)/S)+1`` spatial taps whose kernel stacks the
-block-Toeplitz slices of the taps. XLA maps this straight onto the MXU
-(S x S contractions): measured 15.2 Gsamples/s for 64ch x 255 taps on one
-v5e chip (S=128, marginal step time of a dispatch-pipelined loop) — the
-depthwise-conv formulation runs on the VPU (feature-count-1 convs can't
-use the MXU) and is an order of magnitude slower at this tap count.
+block-Toeplitz slices of the taps: dense S x S contractions that XLA hands
+to its convolution kernels, where the depthwise (feature-count-1) conv
+would do T multiply-adds per sample one tap at a time. The frame size S is
+``_FRAME`` (set from the card's timings, ``benchmarks/sweep.py``).
 
 The Toeplitz kernel is built *inside* jit from the traced tap vector, so
 ``set_taps`` mutations remain retrace-free. Dynamic ``frames`` (partial
@@ -98,6 +97,14 @@ def _toeplitz_kernel(taps, S: int, n_blk: int):
     return jnp.where(valid, taps[jnp.clip(k, 0, T - 1)], 0.0)
 
 
+# Frame size S of the Toeplitz path. The kernel is (S, S, n_blk) but only
+# ~T of each column is nonzero, so FLOPs per sample (2*S*n_blk) grow with S
+# while the work does not; small S means more, smaller contractions.
+# 255 taps x 64 channels x 301,056 frames on an H100 (80GB HBM3, 700 W),
+# benchmarks/sweep.py: S=32 631 us, S=64 572 us, S=128 637 us, S=256 759 us.
+_FRAME = 64
+
+
 def fir_apply(tail, x, taps):
     """FIR over a fully-valid block: ``tail`` (C, T-1) left context,
     ``x`` (C, B). Returns y (C, B). Static-shape core shared by the
@@ -106,16 +113,17 @@ def fir_apply(tail, x, taps):
     C, B = x.shape
     T = taps.shape[-1]
     if taps.ndim != 1 or T < 32 or B < 128:
-        # small filters: the VPU depthwise conv is cheap and avoids the
+        # small filters: the depthwise conv is cheap and avoids the
         # S x S Toeplitz overhead; per-channel taps keep the grouped conv.
         buf = jnp.concatenate([tail, x], axis=1)
         return _conv_valid(buf, jnp.flip(taps, -1))
-    # Frame size: S=128 (one MXU tile). Larger S wastes FLOPs — the
-    # Toeplitz kernel is (S, S, n_blk) but only ~T of each column is
-    # nonzero, so FLOPs/sample = 2*S*n_blk grows linearly in S while the
-    # work doesn't. Measured on v5e (64ch x 301k frames, dispatch-pipelined
-    # marginal step time): S=128 -> 15.2 Gsamp/s, S=256 -> 8.6, S=512 -> 2.7.
-    S = 128
+    return _fir_frames(tail, x, taps, _FRAME)
+
+
+def _fir_frames(tail, x, taps, S: int):
+    """The block-Toeplitz FIR with ``S``-sample frames (see module doc)."""
+    C, B = x.shape
+    T = taps.shape[-1]
     Bp = -(-B // S) * S
     n_blk = -(-(T - 1) // S) + 1
     pad = S * (n_blk - 1)
@@ -221,7 +229,7 @@ def design_lowpass(num_taps: int, cutoff: float, sample_rate: float) -> np.ndarr
     """Windowed-sinc (Hamming) lowpass design, float64 on the host.
 
     Filter *design* happens host-side in float64 (it's control-plane, not
-    hot-path); only the application runs on TPU in f32.
+    hot-path); only the application runs on the device in f32.
     """
     if num_taps < 1:
         raise ValueError("num_taps must be >= 1")

@@ -11,11 +11,10 @@ prototype: ``H(z^L) * Hrs(z)`` decomposes phase-wise to exactly this.
 Validated to 2.2e-15 max error against the sequential float64 oracle
 (docs/PERF_NOTES.md).
 
-Fusing removes one HBM round trip of the intermediate signal (~8% on the
-flagship chain) and collapses two graph stages into one; padded-MXU FLOPs
-are nearly unchanged because the supercycle matmul's 147->256 / 160->256
-padding already covers the wider bank (PERF_NOTES: taps up to the padding
-boundary are free).
+Fusing removes one device-memory round trip of the intermediate signal
+and collapses two graph stages into one, at the cost of a wider bank
+(K_c = K + T - 1 taps per phase). Its speed on the GPU is not measured
+yet.
 
 The combination happens INSIDE jit from the traced tap vector and bank, so
 ``set_taps`` / ``set_bank`` mutations remain retrace-free, preserving the

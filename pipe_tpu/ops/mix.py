@@ -1,6 +1,6 @@
-"""Channel mixing — matrix routing/downmix (MXU work).
+"""Channel mixing — matrix routing/downmix.
 
-The reference ecosystem's mixer merges lines via a shared sink; on TPU the
+The reference ecosystem's mixer merges lines via a shared sink; here the
 merge is an on-device matrix multiply over the channel axis (BASELINE.json:
 'merging multi-line pipes with on-device mixers instead of Go channels').
 """
@@ -19,8 +19,9 @@ from pipe_tpu import config
 
 
 def channel_mix_block(x, m):
-    """``(C_out, C_in) @ (C_in, B) -> (C_out, B)`` on the MXU. f32
-    (HIGHEST) precision — DEFAULT truncates operands to bf16 on TPU."""
+    """``(C_out, C_in) @ (C_in, B) -> (C_out, B)``, at the precision of
+    :func:`pipe_tpu.config.matmul_precision` (``HIGHEST`` by default: an
+    unpinned f32 product on the GPU may run in TF32)."""
     return jnp.dot(
         m, x, preferred_element_type=jnp.float32,
         precision=config.matmul_precision(),

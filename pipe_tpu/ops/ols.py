@@ -11,10 +11,10 @@ which is exactly the halo exchanged between devices when time-blocks are
 sharded.
 
 Spectra are carried as **separate float32 re/im planes**, not complex64:
-XLA lowers the FFTs natively on TPU, but generic complex arithmetic is a
-second-class citizen (and unimplemented on some TPU runtimes); the complex
-multiply-accumulate expands to real einsums that ride the MXU, and complex
-values exist only across the rfft -> irfft boundary.
+the complex multiply-accumulate expands to real einsums at the configured
+matmul precision, and complex values exist only across the rfft -> irfft
+boundary. (Whether complex64 arithmetic would be faster on the GPU is not
+measured.)
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ def ols_block(state, x, frames, ir_spec):
     written in place (``dynamic_update_slice`` + buffer donation), so the
     per-block state traffic is one slot instead of shifting the whole
     delay line — the shift was the dominant cost of the step (the MAC and
-    FFTs are small next to K spectra of HBM traffic; docs/PERF_NOTES.md
-    "OLS convolution"). The MAC alignment moves to the (much smaller) IR
+    FFTs are small next to K spectra of memory traffic; docs/PERF_NOTES.md
+    "ring buffers"). The MAC alignment moves to the (much smaller) IR
     side: ``acc = sum_q fdl[q] * H_rot[q]`` with
     ``H_rot[q] = H[(s - q) mod K]`` — a roll of the reversed partition
     spectra by the traced head.

@@ -17,12 +17,10 @@ Hot path (full blocks with ``B % M == 0``): outputs are grouped into
 *supercycles* of ``G*M`` inputs -> ``G*L`` outputs, and the whole bank
 becomes ONE dense matmul ``y = xw @ W`` with
 ``W[j, q] = hp[(q*M) % L, K-1 + (q*M)//L - j]`` (zero outside the window) —
-a ``(K-1+G*M, G*L)`` Toeplitz-like matrix the MXU chews through. ``W`` is
+a ``(K-1+G*M, G*L)`` Toeplitz-like matrix, one dense contraction. ``W`` is
 built inside jit from the traced bank, so ``hp`` mutations never retrace.
-Measured 7.9 Gsamples/s at 64ch x 301k frames on a v5e chip (G=1,
-marginal step time of a dispatch-pipelined loop); the gather+einsum
-fallback materializes a (C, Bout, K) windows tensor — pure HBM traffic —
-and is far slower, so it only serves partial blocks / phase offsets.
+The gather+einsum fallback materializes a (C, Bout, K) windows tensor —
+pure memory traffic — so it only serves partial blocks / phase offsets.
 
 The gather path remains as the general fallback for partial blocks and
 mid-stream phase offsets (a ``lax.cond`` selects per block at runtime).
@@ -79,14 +77,14 @@ def resample_apply(hist, x, hp, up: int, down: int, group: int | None = None):
       x: ``(C, B)`` input with ``B % down == 0`` (static).
       hp: ``(L, K)`` traced polyphase bank.
       up/down: reduced rate ratio L/M.
-      group: supercycles per matmul row (G); default picks the largest of
-        (8, 4, 2, 1) dividing ``B // down``.
+      group: supercycles per matmul row (G); default 1.
 
     Returns ``(C, B*L//M)``. The whole bank is one 2-tap feature conv on
-    the MXU: frames of ``G*M`` samples are features, ``W`` is split into
+    the device: frames of ``G*M`` samples are features, ``W`` is split into
     the part reading the previous frame (the K-1 overlap) and the current
-    frame. f32 (HIGHEST) precision — DEFAULT truncates to bf16 and caps
-    SNR near 50 dB.
+    frame. Precision is :func:`pipe_tpu.config.matmul_precision`
+    (``HIGHEST`` by default; on the GPU the TF32 levels cap the flagship
+    near 69 dB).
     """
     L, M = up, down
     C, B = x.shape
@@ -97,9 +95,9 @@ def resample_apply(hist, x, hp, up: int, down: int, group: int | None = None):
     if group is None:
         # G=1 minimizes FLOPs: per input sample the dense supercycle matmul
         # costs 2*n_blk*G*L FLOPs, linear in G (the window widens with G but
-        # the useful taps per output stay K). Measured on v5e (64ch x 301k
-        # frames, marginal step time): G=1 -> 7.9 Gsamp/s, G=2 -> 6.7,
-        # G=4 -> 3.2, G=8 -> 1.0. M=147 features already fill the MXU tile.
+        # the useful taps per output stay K). 64 channels x 301,056 frames
+        # on an H100 (80GB HBM3, 700 W), benchmarks/sweep.py: G=1 613 us,
+        # G=2 834 us, G=4 1412 us, G=8 2586 us.
         group = 1
     G = group
     GM, GL = G * M, G * L
@@ -201,7 +199,7 @@ class Resampler:
                 xm = jnp.where(idx < f, sig.data, 0.0)
                 if B % M == 0 and B >= K - 1:
                     # steady-state fast path: full block, zero phase offset
-                    # => one MXU supercycle conv (see resample_apply)
+                    # => one supercycle conv (see resample_apply)
                     def fast(args):
                         hist, off, f, xm, hp = args
                         y = resample_apply(hist, xm, hp, L, M)

@@ -7,11 +7,10 @@ per-bin transform -> weighted-OLA resynthesis engine with *exact* COLA
 normalization, plus two processors built on it (a per-bin gain curve and a
 spectral noise gate).
 
-TPU mapping. All ``B/hop`` analysis windows of a block are framed with one
-gather into a ``(C, F, W)`` tensor, transformed by ONE batched ``rfft``
-(XLA lowers FFTs natively on TPU), per-bin math runs as planar f32 re/im
-arithmetic (complex arithmetic is second-class on some TPU runtimes — same
-policy as ``pipe_tpu/ops/ols.py``), and the overlap-add fold is a static
+Device mapping. All ``B/hop`` analysis windows of a block are framed with
+one gather into a ``(C, F, W)`` tensor, transformed by ONE batched ``rfft``,
+per-bin math runs as planar f32 re/im arithmetic (the same layout as
+``pipe_tpu/ops/ols.py``), and the overlap-add fold is a static
 ``W/hop``-step shift-and-add over hop-sized panes. No per-window host loop,
 no dynamic shapes.
 
@@ -69,8 +68,8 @@ def frame_hops(ext, window_size: int, hop: int, n_frames: int):
 
     ``W % hop == 0``, so window f = ext[:, f*H : f*H + W] decomposes into
     ``K = W/H`` hop-sized panes — built as K shifted reshapes concatenated
-    on the last axis (pure slice+reshape dataflow; a general gather with a
-    (F, W) index array lowers poorly on TPU).
+    on the last axis (pure slice+reshape dataflow, no general gather with
+    a (F, W) index array).
     """
     C = ext.shape[0]
     W, H, F = window_size, hop, n_frames

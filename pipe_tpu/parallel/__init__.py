@@ -2,11 +2,11 @@
 
 This replaces the reference's entire concurrency apparatus (goroutines +
 cap-1 channels, ``fitting.go:81-104``; SURVEY.md §2 parallelism table) with
-the TPU-native constructs:
+device-level constructs:
 
 - **channel axis** = data parallelism: lines/channels sharded over devices;
   per-channel ops need no communication; the merged mixer sink reduces with
-  ``psum`` over ICI.
+  ``psum`` across devices.
 - **time axis** = sequence parallelism: a long chunk is split into
   contiguous time-blocks, one per device; stateful ops receive their left
   neighbor's trailing samples (filter tails, OLS history) as a *halo* via

@@ -400,8 +400,7 @@ class OLSStage(Stage):
         ir = np.asarray(ir, np.float64)
         if not getattr(self, "_partitioned", False):
             spec = np.fft.rfft(ir, n=self._F, axis=-1)
-            # re/im planes, not complex64: generic complex arithmetic is
-            # unimplemented on some TPU runtimes (see pipe_tpu.ops.ols)
+            # re/im planes, not complex64: the layout of pipe_tpu.ops.ols
             planes = np.stack([spec.real, spec.imag], axis=-2).astype(np.float32)
             return jnp.asarray(planes)
         B, K = self._F // 2, self._K
@@ -513,8 +512,8 @@ def _sharded_iir(v, s, a1, a2, basis):
     kernel (``ops.biquad._iir_apply``) instead of a materialized
     (N, C, 2, 2) associative scan:
 
-      1. zero-entering-state local response ``y0`` — the hot pass, MXU
-         Toeplitz tiles (or the assoc scan for small local chunks);
+      1. zero-entering-state local response ``y0`` — the hot pass, through
+         whichever engine ``_iir_apply`` picks for the local chunk;
       2. ``basis = (alpha, beta)`` — length-N responses to unit entering
          states, one (2, N) pass through the same kernel (shared between
          the main and the refinement call, so passed in);
@@ -1328,7 +1327,7 @@ class FMDiscriminatorStage(Stage):
 class _SpectralStageBase(Stage):
     """Streaming STFT -> per-bin transform -> weighted-OLA, time-sharded.
 
-    Two halos per chunk step, both one-hop over ICI: the analysis history
+    Two halos per chunk step, both one hop to the right: the analysis history
     (each device frames its windows against the left neighbor's trailing
     ``W - hop`` samples, exactly the FIR tail mechanic) and the synthesis
     spill (the overlap-add contribution of each device's last windows lands

@@ -10,7 +10,7 @@ full runtime surface — mutation push through ``Pusher``
 (reference ``pipe.go:243-247``), live ``insert_processor`` / ``add_line``
 (``pipe.go:259-365``), EOF + partial-final-chunk masking, host feed/receive,
 start/flush lifecycle — while the per-chunk compute is the exact same
-shard_map'ed stage math (halo exchange over ICI, cross-device scans,
+shard_map'ed stage math (halo exchange between devices, cross-device scans,
 psum mixing).
 
 Each factory mirrors its streaming twin in :mod:`pipe_tpu.ops`: construct,

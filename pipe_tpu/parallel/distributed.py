@@ -1,16 +1,18 @@
-"""Multi-host execution — DCN process group + global mesh construction.
+"""Multi-process execution — process group + global mesh construction.
 
 The reference is strictly single-process (SURVEY.md §2: its inter-stage
-"backend" is Go channels). Scaling past one host here is the standard JAX
-multi-controller recipe: every host runs the same program,
-``jax.distributed.initialize`` forms the process group over DCN, and the
-mesh spans the *global* device set — collectives (the halo ``ppermute``,
-the mixer ``psum``) then ride ICI within a slice and DCN across slices.
+"backend" is Go channels). Scaling past one process here is the standard
+JAX multi-controller recipe: every process runs the same program,
+``jax.distributed.initialize`` forms the process group, and the mesh spans
+the *global* device set — collectives (the halo ``ppermute``, the mixer
+``psum``) then cross process boundaries.
 
-Topology guidance (see ``pipe_tpu.parallel.mesh``): declare the time axis
-last so it maps to the fastest interconnect — halo exchange is
-nearest-neighbor traffic and wants ICI; the channel axis's only collective
-is the final mixer reduction, which tolerates DCN.
+On one host of four GPUs joined all to all by NVLink, ONE process drives
+all four cards and this module is not needed: every card reaches every
+other at the same rate, so mesh axis order follows the algorithm alone.
+The multi-process path is the protocol for several hosts; the tests run it
+with CPU-forced processes (``tests/test_distributed.py``). Never start two
+JAX processes on one card: each reserves most of its memory.
 
 Usage (same program on every host)::
 
@@ -22,7 +24,7 @@ Usage (same program on every host)::
     # feed per-host shards with jax.make_array_from_process_local_data
 
 On a single host both calls degrade gracefully, so the code is portable
-from a laptop CPU mesh to a pod slice unchanged.
+from a laptop CPU mesh to several hosts unchanged.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ def initialize(
 ) -> None:
     """Form the multi-host process group (idempotent; no-op single-host).
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (JAX reads the pod metadata); arguments override for manual clusters.
+    With no arguments, relies on JAX's cluster auto-detection (a no-op
+    where there is no cluster environment); pass ``coordinator_address``
+    (e.g. ``localhost:<port>``), ``num_processes`` and ``process_id`` to
+    form a group by hand.
     """
     global _initialized
     if _initialized:
@@ -66,8 +70,7 @@ def initialize(
 def make_global_mesh(channel_shards: int = 1, time_shards: int = 1):
     """A ``(ch, time)`` mesh over the GLOBAL device set (all hosts).
 
-    Uses ``jax.make_mesh``, which picks a device permutation that keeps the
-    trailing (time) axis on the fastest links of the physical topology.
+    Uses ``jax.make_mesh`` over every process's devices.
     """
     n = channel_shards * time_shards
     total = jax.device_count()

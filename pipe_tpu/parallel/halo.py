@@ -3,7 +3,7 @@
 The overlap-save boundary mechanic: when a stream chunk is sharded over the
 time axis, each device's stateful ops need the trailing ``halo`` samples of
 the *previous* time-block, which live on the left neighbor. ``ppermute``
-shifts every device's tail one step right over ICI; the first device takes
+shifts every device's tail one step right; the first device takes
 the carry from the previous chunk instead.
 """
 

@@ -3,8 +3,8 @@
 The reference's failure story is single-process: first error wins, the
 context cancels every goroutine (``merger.go:33-41``, ``pipe.go:230-239``).
 Across hosts there is no shared memory to cancel through, and a host that
-simply stops participating leaves its peers hung inside the next DCN/ICI
-collective. The protocol here keeps the reference's first-error-wins
+simply stops participating leaves its peers hung inside the next
+cross-process collective. The protocol here keeps the reference's first-error-wins
 semantics with an aligned, out-of-band health exchange:
 
 - the round coordinate is the executor's DEVICE-DISPATCH count

@@ -1,11 +1,11 @@
 """Device mesh construction.
 
 One canonical mesh shape: ``(channel_shards, time_shards)`` with axis names
-:data:`CH_AXIS` and :data:`TIME_AXIS`. On a multi-host pod slice the time
-axis should ride ICI (neighbor halo exchange is nearest-neighbor traffic)
-and the channel axis can span DCN (its only collective is the final mixer
-psum) — `jax.make_mesh` orders axes so the innermost axis maps to the
-fastest interconnect, so declare time last.
+:data:`CH_AXIS` and :data:`TIME_AXIS`. The four GPUs of one host are joined
+all to all by NVLink, so any device order serves both axes alike; the shape
+follows the algorithm (time shards for halo exchange and cross-device
+scans, channel shards for work that needs no communication until the final
+mixer psum).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Observability — per-block timing stats and TPU profiler traces.
+"""Observability — per-block timing stats and JAX profiler traces.
 
 The reference has no tracing/metrics (SURVEY.md §5: errors are the only
 telemetry); its closest artifact is the mock kit's counters. Here the
@@ -97,7 +97,7 @@ class StatsRecorder:
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
     """Capture a ``jax.profiler`` trace of the enclosed stream section for
-    TensorBoard/xprof (device timelines, fused-kernel costs, HBM traffic)."""
+    TensorBoard/xprof (device timelines, kernel costs, memory traffic)."""
     import jax
 
     with jax.profiler.trace(str(logdir)):

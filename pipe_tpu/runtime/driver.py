@@ -65,7 +65,7 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     the analog of the reference's ctx argument (``pipe.go:90``).
     ``batch_blocks=k`` compiles a k-block ``lax.scan`` per dispatch for
     device-source lines — one dispatch advances k blocks (amortizes per-call
-    overhead on remote devices; mutation granularity coarsens to k).
+    overhead; mutation granularity coarsens to k).
     ``mesh`` shard_maps every line's step over a device mesh, exactly as
     ``Pipe(..., mesh=)`` — ``block_size`` is then the global chunk.
     ``optimize=True`` runs the algebraic fusion fixpoint

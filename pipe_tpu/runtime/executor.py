@@ -4,7 +4,8 @@ The reference executes one buffer per component per sweep, with goroutines
 and channels between stages (``run.go:38-52``, ``pipe.go:381-471``). Here the
 whole ``Source -> Processors -> Sink`` sweep for one block is ONE jitted XLA
 computation built by :meth:`LineExecutor._build_step`: XLA fuses the stage
-chain, so the inter-stage "transport" is HBM/VMEM dataflow, not channels.
+chain, so the inter-stage "transport" is device-memory dataflow, not
+channels.
 
 EOF protocol: the source step returns a traced ``eof`` bool. The executor
 gates every component's state update on ``not eof`` inside the jitted step
@@ -115,7 +116,7 @@ class LineExecutor:
         # Dispatch pipelining: keep up to `lookahead` blocks in flight before
         # forcing the EOF flag / sink output of the oldest one. JAX dispatch
         # is async, so with lookahead > 1 the host round-trip per block
-        # overlaps with device compute — essential when the device is remote.
+        # overlaps with device compute.
         # Safe to speculate past EOF: every state update is gated on ~eof
         # inside the jitted step, so extra blocks are no-ops. A pushed
         # mutation still lands at a block boundary, but up to `lookahead`
@@ -124,7 +125,7 @@ class LineExecutor:
         self.lookahead = max(1, lookahead)
         # Dispatch batching: compile a lax.scan over `batch_blocks` blocks so
         # ONE dispatch advances the stream by k blocks — amortizes per-call
-        # overhead (dominant on remote/tunneled devices). Only applies to
+        # overhead. Only applies to
         # device-source lines (a host `feed` callback must run per block);
         # mutation granularity coarsens to k blocks, like lookahead. k=1 is
         # exact reference semantics.
@@ -505,7 +506,7 @@ class LineExecutor:
         if len(self._pending) >= self.lookahead:
             # Resolve half the window in ONE host transfer: fetching each
             # block's flag individually would cost one device->host round
-            # trip per block, which defeats the pipelining on remote TPUs.
+            # trip per block, which defeats the pipelining.
             # A split dispatch (stop_before) can enqueue several SINGLE
             # entries per execute, so also resolve whatever exceeds the
             # window — the in-flight depth must stay bounded by lookahead.
@@ -821,7 +822,7 @@ class LineExecutor:
 
     def insert_processor(self, pos: int, proc, alloc=None, rebuilt=None) -> None:
         """Splice a started processor into the route at ``pos`` and recompile
-        at the next block boundary (the TPU-native form of the reference's
+        at the next block boundary (the fused-step form of the reference's
         two-phase handoff, ``pipe.go:297-365`` / ``run.go:146-169``).
 
         ``rebuilt`` = ``(new_downstream_procs, new_sink)`` re-allocated for

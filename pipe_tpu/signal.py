@@ -2,9 +2,10 @@
 
 Replaces the reference's external ``pipelined.dev/signal`` package (see
 SURVEY.md §1 L0 and the call-site API surface in SURVEY.md §2). The reference
-uses interleaved float64 slices with pooled allocation; on TPU the natural
-layout is planar ``(channels, frames)`` float32 — channels map to sublanes,
-frames to lanes — and XLA buffer donation replaces the pool allocator
+uses interleaved float64 slices with pooled allocation; here the layout is
+planar ``(channels, frames)`` float32 — frames contiguous, so per-channel
+filters stream along memory — and XLA buffer donation replaces the pool
+allocator
 (reference ``pipe.go:490-492``).
 
 The reference's partial-buffer protocol (``Slice(0, read)`` on short reads,

@@ -1,6 +1,6 @@
 """Worker for the multi-host STREAMING tests (see test_distributed.py):
 one of N identical processes running the full Pipe runtime over a global
-mesh — chunk-after-chunk streaming with carried state across DCN, a
+mesh — chunk-after-chunk streaming with carried state across processes, a
 block-indexed mutation landing on the same sample on every host, and
 first-error-wins abort across the process group.
 
@@ -39,7 +39,7 @@ def main():
     assert jax.process_count() == nproc
 
     # time axis spans ALL processes: the FIR halo crosses a process
-    # boundary (the DCN edge) every single chunk
+    # boundary (the process edge) every single chunk
     mesh = parallel.make_global_mesh(channel_shards=1, time_shards=2 * nproc)
 
     # 4-process runs shorten the stream (4 gloo processes share the
@@ -434,7 +434,7 @@ def main():
     if mode == "ols_delay":
         # the r3 heavy collectives across a REAL process boundary: the
         # bin-sharded FDL's two all_to_all transposes and the feedback
-        # delay's rotated-affine ppermute ladder ride DCN every chunk
+        # delay's rotated-affine ppermute ladder cross processes every chunk
         N_OD = 200
         P_ir = 300  # > n_local = CHUNK/4 = 128 -> distributed FDL (K=3)
         rng2 = np.random.default_rng(13)
@@ -499,7 +499,7 @@ def main():
     if mode == "mix_psum":
         # config 5's merged mixer across hosts: channels shard over a mesh
         # axis that spans the PROCESS boundary, so the Mix stage's psum
-        # reduction rides DCN every chunk
+        # reduction crosses processes every chunk
         mesh_m = parallel.make_global_mesh(
             channel_shards=2, time_shards=nproc
         )

@@ -1,4 +1,4 @@
-"""Worker program for the multi-process DCN test (one of N identical
+"""Worker program for the multi-process test (one of N identical
 processes; see test_distributed.py). Exercises the real
 ``jax.distributed.initialize`` path, a global mesh spanning both
 processes, per-host chunk sharding, cross-process halo exchange, and the
@@ -37,7 +37,7 @@ def main():
     from pipe_tpu import ops
     from pipe_tpu.signal import snr_db
 
-    # channel axis spans processes (DCN), time axis local (the "ICI" analog)
+    # channel axis spans processes, time axis local
     mesh = parallel.make_global_mesh(channel_shards=nproc, time_shards=2)
     C, chunk = 2 * nproc, 2352
     h = ops.design_lowpass(101, 4000, 44100)

@@ -1,6 +1,6 @@
 """Multi-process (multi-"host") execution over a real jax.distributed
-process group — the DCN layer tested with actual separate processes, not
-just virtual devices (SURVEY.md §2 parallelism table: cross-host = DCN via
+process group — the multi-process layer tested with actual separate processes, not
+just virtual devices (SURVEY.md §2 parallelism table: cross-host = a process group via
 jax.distributed.initialize + collectives over the global mesh)."""
 
 import os
@@ -121,7 +121,7 @@ def test_two_host_batched_dispatch_abort():
 def test_two_host_distributed_fdl_and_delay_ladder():
     """The r3 heavy collectives across a REAL process boundary: the
     bin-sharded OLS FDL's all_to_all transposes and the feedback delay's
-    ppermute ladder ride DCN every chunk; both hosts match the float64
+    ppermute ladder cross processes every chunk; both hosts match the float64
     oracle at > 100 dB."""
     procs, outs = _run_workers("dcn_stream_worker.py", ["ols_delay"])
     for pid, (p, out) in enumerate(zip(procs, outs)):
@@ -131,7 +131,7 @@ def test_two_host_distributed_fdl_and_delay_ladder():
 
 def test_two_host_merged_mixer_psum():
     """Config 5's merged mixer across hosts: the channel axis spans the
-    process boundary, so the Mix stage's psum reduction crosses DCN every
+    process boundary, so the Mix stage's psum reduction crosses processes every
     chunk; both hosts' (replicated) mixed outputs match the float64
     oracle at > 100 dB."""
     procs, outs = _run_workers("dcn_stream_worker.py", ["mix_psum"])
@@ -234,7 +234,7 @@ def test_two_host_abort_in_final_window():
 
 def test_four_host_stream_time_axis_spans_processes():
     """A 1x8 time-sharded chunk stream across FOUR real processes: the FIR
-    halo crosses three DCN process boundaries every chunk, a targeted
+    halo crosses three process boundaries every chunk, a targeted
     retune lands on the same sample everywhere, >= 100 dB on every host."""
     procs, outs = _run_workers(
         "dcn_stream_worker.py", ["stream"], timeout=600, n_procs=4
@@ -305,7 +305,7 @@ def test_four_host_abort_three_survivors():
 def test_four_host_heavy_collectives_ols_delay_stft():
     """The heavy collective set over a FOUR-process group: the bin-sharded
     distributed-FDL OLS's two all_to_all transposes, the feedback delay
-    ladder, and the dual-halo STFT all cross three DCN edges every chunk;
+    ladder, and the dual-halo STFT all cross three process edges every chunk;
     every host matches the float64 oracle > 100 dB."""
     procs, outs = _run_workers(
         "dcn_stream_worker.py", ["ols_delay"], timeout=600, n_procs=4

@@ -1,7 +1,7 @@
 """DSP op golden tests — streaming output vs float64 scipy/numpy oracles.
 
 This replaces the reference's reflect.DeepEqual bit-exactness (the rebuild
-computes in f32 on TPU) with SNR bounds: >= 100 dB for linear ops per
+computes in f32 on the device) with SNR bounds: >= 100 dB for linear ops per
 BASELINE.md, relaxed for IIR recursion (f32 pole feedback).
 """
 
@@ -308,10 +308,14 @@ def test_am_demod_recovers_message(rng):
 
 
 def test_fir_matmul_pad_path(rng):
-    """Block size not divisible by 128 takes the pad-to-128 Toeplitz path."""
+    """A block size that is not a multiple of the frame size takes the
+    padded Toeplitz path."""
+    from pipe_tpu.ops.fir import _FRAME
+
     h = ops.design_lowpass(255, cutoff=4000, sample_rate=44100)
-    x = rng.standard_normal((2, 320 * 6)).astype(np.float32)
-    out = stream_through([ops.FIR(h).processor()], x, block=320)
+    block = 5 * _FRAME + 16
+    x = rng.standard_normal((2, block * 6)).astype(np.float32)
+    out = stream_through([ops.FIR(h).processor()], x, block=block)
     oracle = scipy.signal.lfilter(h, [1.0], x.astype(np.float64), axis=1)
     assert snr_db(oracle, out) > SNR_TARGET
 
@@ -331,8 +335,8 @@ def test_resampler_fast_path_equals_gather_path(rng):
 
 
 def test_iir_tiled_paths_match_assoc(rng):
-    """The tiled Toeplitz recurrence (scan fallback AND the Pallas kernel in
-    interpreter mode) must match the associative-scan path and sosfilt."""
+    """The tiled Toeplitz recurrence (scan of tile matmuls) must match the
+    associative-scan path and sosfilt."""
     from pipe_tpu.ops.biquad import _iir_apply
 
     sos = ops.design_peaking_eq(44100, freq=2000, q=2.0, gain_db=6.0)
@@ -341,13 +345,9 @@ def test_iir_tiled_paths_match_assoc(rng):
     v = jnp.asarray(rng.standard_normal((C, B)), jnp.float32)
     s = jnp.asarray(rng.standard_normal((C, 2)), jnp.float32)
 
-    y_assoc = np.asarray(jax.jit(lambda: _iir_apply(v, s, a1, a2, force="assoc"))())
-    y_tiles = np.asarray(jax.jit(lambda: _iir_apply(v, s, a1, a2, force="tiles"))())
-    y_pl = np.asarray(
-        jax.jit(lambda: _iir_apply(v, s, a1, a2, force="pallas_interpret"))()
-    )
+    y_assoc = np.asarray(jax.jit(lambda: _iir_apply(v, s, a1, a2, "assoc"))())
+    y_tiles = np.asarray(jax.jit(lambda: _iir_apply(v, s, a1, a2, "tiles"))())
     assert snr_db(y_assoc.astype(np.float64), y_tiles) > 110
-    assert snr_db(y_assoc.astype(np.float64), y_pl) > 110
 
     # absolute truth: pure-python recurrence in float64
     ref = np.zeros((C, B))
@@ -358,6 +358,31 @@ def test_iir_tiled_paths_match_assoc(rng):
         ref[:, n] = yn
         y1, y2 = yn, y1
     assert snr_db(ref, y_tiles) > 90  # f32 pole feedback bound
+
+
+@pytest.mark.parametrize(
+    "B,backend,path",
+    [
+        (8192, "gpu", "assoc"),  # the GPU always scans (H100 timings)
+        (256, "gpu", "assoc"),
+        (8192, "cpu", "tiles"),
+        (2048, "cpu", "tiles"),
+        (1024, "cpu", "assoc"),  # under _TILE_MIN_B
+        (2304, "cpu", "tiles"),
+        (2100, "cpu", "assoc"),  # not whole tiles
+    ],
+)
+def test_iir_dispatch_rule(B, backend, path):
+    from pipe_tpu.ops.biquad import _iir_path
+
+    assert _iir_path(B, backend) == path
+
+
+def test_iir_dispatch_follows_default_backend():
+    from pipe_tpu.ops.biquad import _iir_path
+
+    assert jax.default_backend() == "cpu"
+    assert _iir_path(8192) == "tiles"
 
 
 def test_biquad_large_block_tiled_streaming(rng):

@@ -12,7 +12,7 @@ ratio while destroying scaling. Two CI detectors close that hole:
    count(2)) and fails here with zero timing noise.
 2. **Wall-clock trend** (lenient): a fixed GLOBAL payload stepped on 1 vs
    8 virtual devices must not blow up. On shared-core CPU "devices" the
-   cores bound throughput either way, so this cannot measure true ICI
+   cores bound throughput either way, so this cannot measure true interconnect
    efficiency (docs/PERF_NOTES.md records the caveat with the measured
    table) — but a pathological regression (per-step recompile, host sync
    per sample) still trips the generous bound.
